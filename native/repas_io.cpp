@@ -2,7 +2,7 @@
 //
 // Role: the reference delegates image decode and geometry I/O to native
 // libraries (OpenCV imread/imdecode, Open3D PLY I/O — SURVEY.md §2.1 N2/N3);
-// this library is the equivalent native layer for the TPU framework's host
+// this library is the equivalent native layer for the framework's host
 // side: a zlib-based PNG codec (8-bit gray/RGB/RGBA + 16-bit gray depth
 // images) and a std::thread batch loader that decodes a capture batch in
 // parallel before device upload.  Exposed via a C ABI for ctypes.

@@ -1,10 +1,10 @@
-"""repas_tpu — TPU-native (JAX/XLA/Pallas) RGB-D vision framework.
+"""repas_tpu — a JAX (XLA/Pallas) RGB-D vision framework.
 
 A ground-up rebuild of the capabilities of blanklavender/repas-vision
 (AprilTag detection, 6-DOF PnP pose, depth->color alignment, point-cloud
 generation/cropping, CAD placement + ICP, camera calibration, plant-canopy
-height measurement) designed TPU-first: batched frames, fused XLA/Pallas
-kernels, `shard_map` scale-out over a device mesh.
+height measurement) designed for an accelerator: batched frames, fused
+XLA/Pallas kernels, `shard_map` scale-out over a device mesh.
 
 Subpackage map (see SURVEY.md §7 for the blueprint):
   core/     intrinsics & calibration schemas, SO(3)/SE(3), config tree
@@ -25,9 +25,10 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry code (PnP, SE(3), ICP) needs true f32 matmuls; the platform
-# default lowers small-matrix products to bf16 passes which costs ~1e-2
-# absolute error on rotation chains. Hot throughput kernels opt back into
-# bf16 explicitly via preferred_element_type / precision arguments.
+# Geometry code (PnP, SE(3), ICP) needs true f32 matmuls: on the GPU an
+# f32 matrix product may otherwise run in TF32 (~3 decimal digits), which
+# costs ~1e-3 relative error per product on rotation chains. Hot
+# throughput kernels opt into bf16 explicitly via preferred_element_type
+# / precision arguments.
 _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -6,7 +6,7 @@ cv2.Canny + cv2.HoughLinesP become device kernels:
     threshold, hysteresis by iterated dilation of strong edges through the
     weak mask.
   * Hough: one scatter-add accumulator over (theta, rho) bins fed by edge
-    pixels (the TPU-friendly dual of the C++ probabilistic line scan);
+    pixels (the data-parallel dual of the C++ probabilistic line scan);
     line endpoints recovered by projecting near-line edge pixels onto the
     line direction.
 
@@ -163,7 +163,7 @@ def detect_bar(rgb: jnp.ndarray, canny_low: float = 50.0,
 
     The reference rotates the whole frame so the bar is horizontal and
     segments in the rotated frame (canopy_return_upgraded.py:11-95); a
-    full-image bilinear warp is a serialized gather on TPU, and the
+    full-image bilinear warp is a gather per pixel, and the
     rotated-frame row coordinate of any pixel is just an affine form
     yr = M10 x + M11 y + M12 — so the pipeline measures 'highest plant
     pixel above the bar' by projecting mask pixels directly

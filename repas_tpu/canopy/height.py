@@ -46,7 +46,7 @@ def measure_plant_height(rgb: jnp.ndarray, depth_m: jnp.ndarray, K,
 
     The 2-D stages (Canny/Hough/rotation/segmentation) run at
     1/cfg.proc_decimate resolution — full-image gathers/scatters dominate
-    on TPU and the pipeline's outputs are depth-gated 3-D points whose
+    them, and the pipeline's outputs are depth-gated 3-D points whose
     precision is set by the depth lookup, not 2-D pixel quantization.
     Depth lookups and deprojection use the full-resolution image and K.
     """
@@ -69,8 +69,8 @@ def measure_plant_height(rgb: jnp.ndarray, depth_m: jnp.ndarray, K,
     # (canopy_return_upgraded.py:133-151). The rotated-frame row of any
     # pixel is the affine form yr = M10 x + M11 y + M12, so 'highest
     # plant pixel above the bar' is a masked min of that elementwise
-    # field — a full-image bilinear warp (a serialized gather on TPU)
-    # never has to happen.
+    # field — a full-image bilinear warp (a gather per pixel) never has
+    # to happen.
     line, M = detect_bar(
         rgb_proc, cfg.canny_low, cfg.canny_high,
         max(1, cfg.hough_threshold // dec),

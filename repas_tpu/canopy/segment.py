@@ -55,9 +55,7 @@ def refine_plant_mask(rgb: jnp.ndarray, seed: jnp.ndarray,
 
     # Two-level one-hot factorization of the bin index (hi = bins //
     # _LO, lo = bins % _LO): per-pixel histogram scatter-adds and
-    # 2048-entry table gathers are serialized scalar memory ops on TPU
-    # (~100 ms/frame total across the 5 iterations); as one-hot factors
-    # they become MXU matmuls —
+    # 2048-entry table gathers become, as one-hot factors, matmuls —
     #   hist[hi,lo]   = (e_hi * m)^T @ e_lo          (scatter-add)
     #   table[bins_p] = sum_hl e_hi[p,h] T[h,l] e_lo[p,l]   (gather)
     # — exact (each one-hot row has a single 1, so sums have one term).
@@ -113,7 +111,7 @@ def apply_green_mask(rgb: jnp.ndarray, plant_mask: jnp.ndarray,
     (apply_green_mask, canopy_return_upgraded.py:119-131), then geodesic
     reconstruction of the pre-opening mask from the opened one.
 
-    The reconstruction step is the TPU build's fix for a defect the
+    The reconstruction step is this build's fix for a defect the
     reference pipeline shares: a 1-2 px-wide leaf tip does not survive a
     3x3 opening, so the canopy mark lands several pixels below the real
     plant top (the reference's own recorded canopy_y values scatter

@@ -110,7 +110,7 @@ def statistical_outlier_mask(pts: jnp.ndarray, mask: jnp.ndarray,
     Exact kNN over every pair is O(N^2); here each point's kNN is computed
     against a fixed random subsample of the cloud (distance distributions
     are statistically identical for outlier purposes), keeping the op
-    O(N * sample) — a single (N,sample) distance matrix on the MXU.
+    O(N * sample) — a single (N,sample) distance matrix product.
     """
     if key is None:
         key = jax.random.PRNGKey(0)

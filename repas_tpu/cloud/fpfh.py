@@ -1,7 +1,7 @@
 """FPFH features + RANSAC global registration (C15, icp_cad_model.py).
 
 Open3D's compute_fpfh_feature + registration_ransac_based_on_feature_matching
-(icp_cad_model.py:44-96) redesigned for TPU:
+(icp_cad_model.py:44-96) redesigned for batched device execution:
 
   * FPFH: per-point SPFH (Darboux-frame angle triplet histograms, 11 bins
     per angle = 33 dims) over k nearest neighbors, then the standard

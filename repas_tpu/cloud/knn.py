@@ -8,7 +8,7 @@ queries gather the 3x3x3 neighborhood's candidates. All shapes static.
 
 For ICP-scale problems (50k source vs 100-500k target at 5 mm voxels)
 this is a handful of scatter/gather passes — orders of magnitude cheaper
-than per-query tree traversal and a natural fit for TPU vector units.
+than per-query tree traversal and a natural fit for vector hardware.
 """
 from __future__ import annotations
 

@@ -73,7 +73,7 @@ def estimate_normals(pts: jnp.ndarray, mask: jnp.ndarray, k: int = 30,
     (default origin, matching orient_normals_towards_camera_location).
 
     Neighbor search runs against a random subsample (size `sample`) of the
-    cloud — one (N,S) MXU distance matrix instead of a KD-tree.
+    cloud — one (N,S) distance-matrix product instead of a KD-tree.
     Returns (normals (N,3), ok (N,) bool).
     """
     if key is None:
@@ -106,7 +106,6 @@ def estimate_normals(pts: jnp.ndarray, mask: jnp.ndarray, k: int = 30,
     A = cov + 1e-12 * (tr + 1e-30) * jnp.eye(3)[None]
 
     def smallest_evec(Ai):
-        # eigh on 3x3 batches is fine on TPU
         wvals, vecs = jnp.linalg.eigh(Ai)
         return vecs[:, 0]
 

@@ -2,14 +2,14 @@
 ply_to_stl.py).
 
 Open3D's ball-pivoting / Poisson(depth 9) calls (ply_to_stl.py:65-91) are
-replaced with a TPU-shaped pipeline:
+replaced with a data-parallel pipeline:
 
   1. splat oriented points into a voxel grid: a smoothed normal vector
      field V (scatter-add)                                   [device]
   2. solve the Poisson equation  laplacian(chi) = div(V)  spectrally with
      jnp.fft (the screened-Poisson normal-field formulation on a regular
-     grid; the FFT replaces the reference's octree multigrid and maps
-     perfectly onto TPU)                                     [device]
+     grid; the FFT replaces the reference's octree multigrid)
+                                                             [device]
   3. iso-surface extraction with the surface-nets dual method: one vertex
      per sign-change cell (positioned at the zero-crossing centroid), one
      quad (two triangles) per sign-changing grid edge        [host]
@@ -229,7 +229,7 @@ def ball_pivot(pc: PointCloud, radii: list[float] | None = None,
     reference's named BPA method (ply_to_stl.py:65-91, auto radii
     0.8/1.2/1.6x mean NN spacing, ply_to_stl.py:55-63).
 
-    TPU-shaped formulation via BPA's geometric characterization instead
+    Data-parallel formulation via BPA's geometric characterization instead
     of the sequential advancing-front walk: a triangle is on the r-BPA
     surface iff its circumradius is <= r AND a ball of radius r through
     its three vertices is EMPTY of other points (the pivot ball "rests"

@@ -21,7 +21,7 @@ class DetectorConfig:
     decode_sharpening: float = 0.25
     max_hamming: int = 2
     min_decision_margin: float = 10.0   # three_pose_vertical_translation_validation.py:38
-    # TPU-specific capacities (fixed-size masked-slot formulation)
+    # capacities of the fixed-size masked-slot formulation
     max_components: int = 48            # candidate dark regions per frame
     max_detections: int = 8             # decoded tags returned per frame
     min_area_px: float = 64.0
@@ -79,7 +79,7 @@ class RansacConfig:
     max_iterations: int = 200_000
     edge_length_check: float = 0.9
     dist_check_mult: float = 2.5
-    # TPU batch formulation
+    # hypotheses scored as one batch
     hypothesis_batch: int = 8192
 
 

@@ -320,8 +320,8 @@ def homography_from_unit_square(quad: jnp.ndarray) -> jnp.ndarray:
     Closed form (projective bilinear interpolation over the unit square,
     composed with the [-1,1]^2 -> [0,1]^2 affine), NOT a linear solve:
     jnp.linalg.solve's 8x8 LU emits pivot-selection gathers on every
-    elimination step — a serialized chain on TPU — while this is ~25
-    fused elementwise ops. Exact to fp rounding (validated against the
+    elimination step — a serialized chain — while this is ~25 fused
+    elementwise ops. Exact to fp rounding (validated against the
     solve on random quads)."""
     x0, y0 = quad[0, 0], quad[0, 1]
     x1, y1 = quad[1, 0], quad[1, 1]

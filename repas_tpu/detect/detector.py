@@ -1,11 +1,11 @@
-"""Batched tag36h11 AprilTag detector — TPU-native formulation.
+"""Batched tag36h11 AprilTag detector — data-parallel formulation.
 
 Replaces the pupil-apriltags C detector (N1; ctor params at
 april_tag_detector_solvepnp.py:154-162). The C library's irregular stages
 (union-find segmentation, variable-count quad candidates, per-quad decode)
 are reformulated as fixed-capacity, masked-slot data-parallel passes:
 
-  1. grayscale (+ optional blur/decimate)              [VPU stencils]
+  1. grayscale (+ optional blur/decimate)              [stencils]
   2. tile adaptive threshold, low-contrast exclusion   [reduce-window]
   3. connected components on dark pixels               [min-propagation +
                                                         pointer jumping]
@@ -34,22 +34,20 @@ import numpy as np
 
 from repas_tpu.core.config import DetectorConfig
 from repas_tpu.core.transforms import homography_from_unit_square
-from repas_tpu.kernels.patch_extract import (ROW_TILE,
-                                             extract_patches_pyramid)
 from repas_tpu.detect import tag_families
 from repas_tpu.kernels.ccl import connected_components, top_k_components
 from repas_tpu.kernels.image import (adaptive_threshold, bilinear_sample,
                                      bilinear_sample_patch, decimate,
                                      gaussian_blur, rgb_to_gray)
+from repas_tpu.kernels.patch_extract import extract_patches_pyramid
 
 # side of the per-component ROI patch used for subpixel refinement AND
 # decode (gather-free matmul sampling): covers quads up to
 # ~PATCH-2*margin px across at full resolution; larger quads use a
-# 2x/4x/8x decimated patch of the same size (see detect_tags). 128 keeps
-# the hat-weight matrices and patch DMA traffic 4x smaller than 256 did
-# (the refine+decode stage was the detector's hottest at 1.24 ms/frame
-# on v5e, dominated by (samples, PATCH) weight construction); the lost
-# single-level coverage is recovered by one extra pyramid level.
+# 2x/4x/8x decimated patch of the same size (see detect_tags). A smaller
+# patch than 256 keeps the (samples, PATCH) hat-weight matrices and the
+# patch copies small; the lost single-level coverage is recovered by one
+# extra pyramid level.
 _PATCH = 192
 
 _NDIRS = 16
@@ -143,7 +141,8 @@ def _support_points(labels: jnp.ndarray, roots: jnp.ndarray,
     # so the row-extreme set {(minx[y],y), (maxx[y],y)} provably contains
     # a global maximizer for EVERY direction, and the per-direction
     # masked maxes run over 2*ph candidates instead of ph*pw pixels
-    # (64x less VPU traffic; two full-patch reductions happen once).
+    # (64x less elementwise traffic; two full-patch reductions happen
+    # once).
     # Tie handling is unchanged: any winner's row-extreme (matching the
     # direction's x-sign) is itself a winner with >= x and equal y, so
     # the max-x / max-y-over-winners outputs are identical — the swap is
@@ -235,8 +234,8 @@ def _refine_edges(gray: jnp.ndarray, quad: jnp.ndarray,
 
     `sampler(gray, pts)` defaults to the gather-based bilinear_sample;
     the detector passes bilinear_sample_patch with per-component ROI
-    patches (gathers are serialized scalar loads on TPU — the matmul
-    formulation is ~10x faster at these sample counts).
+    patches (two dense contractions instead of four gathers per
+    sample).
     """
     rolled = jnp.roll(quad, -1, axis=0)
     ts = jnp.linspace(0.12, 0.88, n_samples)
@@ -254,11 +253,9 @@ def _refine_edges(gray: jnp.ndarray, quad: jnp.ndarray,
         vals = sampler(gray, samp)                            # (S,O)
         grad = jnp.abs(vals[:, 2:] - vals[:, :-2])            # (S,O-2)
         j = jnp.clip(jnp.argmax(grad, axis=1), 1, grad.shape[1] - 2)
-        # neighborhood reads via one-hot masked sums, NOT take_along_axis:
-        # TPU gathers are serialized scalar loads, and the three
-        # per-sample gathers here were most of the refine stage's cost
-        # (0.15 ms/frame/pass at 720p). sum(grad * (iota==j)) has exactly
-        # one nonzero term, so it is bit-exact grad[j].
+        # neighborhood reads via one-hot masked sums instead of
+        # take_along_axis gathers: sum(grad * (iota==j)) has exactly one
+        # nonzero term, so it is bit-exact grad[j].
         iot = jax.lax.broadcasted_iota(jnp.int32, grad.shape, 1)
         jc = j[:, None]
         g0 = jnp.sum(jnp.where(iot == jc - 1, grad, 0.0), axis=1)
@@ -347,9 +344,7 @@ def _decode_quad(gray: jnp.ndarray, quad: jnp.ndarray, table: jnp.ndarray,
 
     `sampler(pts)` maps full-resolution pixel coords (...,2) to intensity
     samples; default is a gather-based bilinear_sample on `gray`. The
-    detector passes a patch-backed matmul sampler instead (TPU gathers
-    are serialized scalar loads — ~6k decode gathers per frame cost more
-    than the whole segmentation stage)."""
+    detector passes a patch-backed matmul sampler instead."""
     if sampler is None:
         sampler = lambda p: bilinear_sample(gray, p)  # noqa: E731
     H = _homography_quad(quad)
@@ -514,16 +509,15 @@ def detect_tags(img: jnp.ndarray, config: DetectorConfig = DetectorConfig(),
     # offset, a tight second pass from the refined quad avoids secondary
     # gradients inside the search window (0.24 mm / 0.16 deg pose error on
     # a supersampled render vs 2.9 mm / 1.1 deg single-pass).
-    # Sampling runs on per-component ROI patches with the gather-free
-    # matmul sampler (TPU gathers are serialized scalar loads; patches
-    # are contiguous dynamic-slice DMAs). Quads too large for a full-res
-    # patch (> ~100 px across — close-range tags) pick the first pyramid
-    # level whose decimated patch covers them: level-l localization error
-    # ~0.1*2^l px, far below the coarse corners they previously kept
-    # (2.6 mm vs 0.24 mm pose cliff, ADVICE r2). The pyramid is stored
+    # Sampling runs on per-component ROI patches (contiguous dynamic
+    # slices) with the gather-free matmul sampler. Quads too large for a
+    # full-res patch (> ~100 px across — close-range tags) pick the first
+    # pyramid level whose decimated patch covers them: level-l
+    # localization error ~0.1*2^l px, far below the coarse corners they
+    # previously kept (2.6 mm vs 0.24 mm pose cliff). The pyramid is stored
     # row-concatenated at native per-level size (one 2-D buffer, ~1.9x
     # the image) rather than as an (L,H,W) stack (L x the image written
-    # per frame — pure HBM waste at these sizes).
+    # per frame).
     ph, pw = min(_PATCH, h), min(_PATCH, w)
     margin = 12.0
     cover = min(ph, pw) - 2 * margin
@@ -538,21 +532,15 @@ def detect_tags(img: jnp.ndarray, config: DetectorConfig = DetectorConfig(),
     for a in lvl_imgs:
         hl_, wl_ = a.shape
         row_off.append(sum(r.shape[0] for r in rows))
-        # height-pad each level block to a ROW_TILE multiple with >= 16
-        # rows of slack past max(content, patch): the aligned-window
-        # extractor (kernels/patch_extract.py) rounds window starts down
-        # to the HBM tile, and tile-multiple block heights guarantee a
-        # window never crosses into a neighboring level's rows. Edge
-        # mode so bottom-margin samples of quads near the image bottom
-        # read replicated pixels, not zeros.
+        # pad each level block to at least the patch size (edge mode:
+        # a level smaller than the patch reads replicated pixels, not
+        # zeros); window starts are clipped inside their level, so a
+        # window never crosses into a neighboring level's rows.
         # bf16 storage: the matmul sampler casts patches to bf16 anyway
         # (bilinear_sample_patch), so rounding at pyramid build produces
-        # bit-identical samples while halving the patch-extraction DMA
-        # traffic — the extraction was the detector's hottest single op
-        # (0.39 ms/frame at 720p; tools/micro_perf.py).
-        hb = -(-(max(hl_, ph) + ROW_TILE) // ROW_TILE) * ROW_TILE
+        # bit-identical samples while halving the patch-copy traffic.
         rows.append(jnp.pad(a.astype(jnp.bfloat16),
-                            ((0, hb - hl_), (0, w - wl_)),
+                            ((0, max(hl_, ph) - hl_), (0, w - wl_)),
                             mode="edge"))
     pyr = jnp.concatenate(rows, axis=0)                # (~2H, W) bf16
     row_off = jnp.asarray(row_off, jnp.int32)
@@ -586,18 +574,9 @@ def detect_tags(img: jnp.ndarray, config: DetectorConfig = DetectorConfig(),
         jnp.stack(starts_l, axis=1), lvl[:, None, None], axis=1)[:, 0]
     scale = jnp.exp2(lvl.astype(jnp.float32))[:, None, None]  # (C,1,1)
 
-    # patch extraction: pure-DMA Pallas kernel on TPU (the vmapped
-    # dynamic_slice lowers to a serialized row-gather ~20x off DMA
-    # bandwidth and was the detector's hottest single op — see
-    # kernels/patch_extract.py). Windows come back tile-ALIGNED and a
-    # little larger than (ph,pw); the matmul samplers absorb the
-    # residual through the returned origin (numerically equivalent for
-    # every level-fit quad — same source pixels, same hat weights up to
-    # fp rounding of the shifted coordinates).
-    patches, ay, ax = extract_patches_pyramid(
+    patches = extract_patches_pyramid(
         pyr, row_off[lvl] + starts[:, 1], starts[:, 0], ph, pw)
-    off = jnp.stack([ax, ay - row_off[lvl]],
-                    axis=1).astype(jnp.float32)[:, None, :]   # (C,1,2)
+    off = starts.astype(jnp.float32)[:, None, :]               # (C,1,2)
     q_rel = (quads - (scale - 1) / 2.0) / scale - off
     # pass 1 scans the +-(2+dec) px window at 1 px steps (the parabola
     # peak fit is accurate to ~0.1 px at this step — pass 2 tightens it);

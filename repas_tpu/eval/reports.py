@@ -164,7 +164,7 @@ def point_to_mesh_distances(pts: jnp.ndarray, verts: jnp.ndarray,
 
     (N,) float32. For the reference workloads (150k points vs CAD meshes,
     alignment_errors.txt) this is a dense N x F sweep that vectorizes
-    cleanly; no BVH needed on TPU.
+    cleanly; no BVH needed.
     """
     a = verts[tris[:, 0]]
     b = verts[tris[:, 1]]

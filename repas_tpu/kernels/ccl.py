@@ -1,13 +1,24 @@
-"""Connected-component labeling on TPU.
+"""Connected-component labeling.
 
 The AprilTag C library segments the thresholded image with union-find
 (N1, SURVEY.md §2.1); union-find is irregular and hostile to XLA, so this
-uses the classic data-parallel alternative: iterative min-label propagation
-with pointer jumping (label doubling), giving O(log diameter) convergence
-with fully regular gathers/stencils.
+uses the data-parallel alternative: rounds of min-label propagation, each
+a forward+backward segmented min-scan along rows, the same along columns,
+and a 3x3 neighbour-min stencil. Scans carry a label across a whole
+straight run in one pass, so a quad ring converges in ~4 rounds.
 
 Labels are linear pixel indices; background pixels get label = H*W
 (sentinel). Same-class 8-neighbors merge.
+
+Two implementations of the segmented scan, bit-identical (labels are
+integers and the minimum is exact):
+  * `_connected_components_xla` — `lax.associative_scan`, the reference
+    and the path on every platform but CUDA;
+  * `_connected_components_triton` — a Pallas kernel through Triton: one
+    program per block of columns walks the rows with the running minimum
+    in registers, so each pass reads and writes every pixel once instead
+    of the ~2*log2(n) passes of the associative scan's slice tree. Row
+    scans run the same kernel on the transposed labels.
 """
 from __future__ import annotations
 
@@ -15,62 +26,38 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 
 def connected_components(mask: jnp.ndarray, iters: int = 5,
-                         connectivity: int = 8,
-                         jump_every: int = 0) -> jnp.ndarray:
-    """Backend dispatch: the VMEM-resident Pallas kernel on TPU (bit-
-    identical, ~5x faster — ccl_pallas.py), the XLA scan formulation
-    elsewhere. jump_every is only honored by the XLA path (the default
-    pipelines never enable it)."""
-    if jump_every == 0 and jax.default_backend() == "tpu":
-        if mask.shape[0] * mask.shape[1] <= MAX_VMEM_PIXELS:
-            from repas_tpu.kernels.ccl_pallas import \
-                connected_components_pallas
-            return connected_components_pallas(mask, iters=iters,
-                                               connectivity=connectivity)
-        from repas_tpu.kernels.ccl_pallas import \
-            connected_components_pallas_tiled
-        return connected_components_pallas_tiled(mask, iters=iters,
-                                                 connectivity=connectivity)
-    return _connected_components_xla(mask, iters=iters,
-                                     connectivity=connectivity,
-                                     jump_every=jump_every)
-
-
-# the Pallas path needs the whole label image + temporaries in VMEM
-MAX_VMEM_PIXELS = 512 * 1024
-
-
-@functools.partial(jax.jit, static_argnames=("iters", "connectivity",
-                                              "jump_every"))
-def _connected_components_xla(mask: jnp.ndarray, iters: int = 5,
-                              connectivity: int = 8,
-                              jump_every: int = 0) -> jnp.ndarray:
+                         connectivity: int = 8) -> jnp.ndarray:
     """Label connected True-regions of `mask` (H,W bool).
 
     Returns (H,W) int32 labels: the minimum linear pixel index of the
-    component; H*W for background.
+    component; H*W for background. The Triton scan kernel serves CUDA
+    devices, the XLA scan formulation every other platform."""
+    return jax.lax.platform_dependent(
+        mask,
+        cuda=functools.partial(_connected_components_triton, iters=iters,
+                               connectivity=connectivity),
+        default=functools.partial(_connected_components_xla, iters=iters,
+                                  connectivity=connectivity))
 
-    Performance shape (measured on v5e): 3x3 shifted-min stencil passes
-    are ~15 us each at 360x640 while a pointer-jump is a full-image gather
-    at ~5-10 ms, so propagation is stencil-only with a sparse jump every
-    `jump_every` rounds to compress long chains (ring perimeters of large
-    tags) logarithmically.
-    """
+
+def _label_rounds(mask, iters, connectivity, seg_scan):
+    """`iters` propagation rounds; `seg_scan(lab, axis)` is the forward-
+    then-backward segmented min-scan along `axis` (run-reset at
+    background pixels, output sentinel there)."""
     h, w = mask.shape
-    n = h * w
     idx = (jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) * w
            + jax.lax.broadcasted_iota(jnp.int32, (h, w), 1))
-    sentinel = jnp.int32(n)
+    sentinel = jnp.int32(h * w)
     labels = jnp.where(mask, idx, sentinel)
-
-    big = sentinel
 
     def neighbor_min(lab):
         """Min label over same-class neighbors (mask-True pixels only)."""
-        p = jnp.pad(lab, 1, constant_values=big)
+        p = jnp.pad(lab, 1, constant_values=sentinel)
         m = lab
         shifts = [(-1, 0), (1, 0), (0, -1), (0, 1)]
         if connectivity == 8:
@@ -79,54 +66,116 @@ def _connected_components_xla(mask: jnp.ndarray, iters: int = 5,
             m = jnp.minimum(m, p[1 + dy: 1 + dy + h, 1 + dx: 1 + dx + w])
         return jnp.where(mask, m, sentinel)
 
-    def jump(lab):
-        flat = jnp.concatenate([lab.reshape(-1),
-                                jnp.array([big], jnp.int32)])
-        lab2 = flat[lab.reshape(-1)].reshape(h, w)
-        return jnp.where(mask, jnp.minimum(lab, lab2), sentinel)
-
-    # segmented min-scans: labels propagate across an ENTIRE contiguous
-    # run of mask-True pixels along a row/column in one associative scan,
-    # so straight stretches (tag border sides, frame bars) converge in one
-    # pass regardless of length; the stencil handles the turns. A quad
-    # ring converges in ~4 scan+stencil rounds.
-    brk = ~mask
-
-    def seg_min_scan(lab, axis, reverse):
-        def combine(a, b):
-            av, ab_ = a
-            bv, bb = b
-            return (jnp.where(bb, bv, jnp.minimum(av, bv)), ab_ | bb)
-
-        v, _ = jax.lax.associative_scan(combine, (lab, brk), axis=axis,
-                                        reverse=reverse)
-        return jnp.where(mask, v, sentinel)
-
-    def body(i, lab):
-        lab = seg_min_scan(lab, 1, False)
-        lab = seg_min_scan(lab, 1, True)
-        lab = seg_min_scan(lab, 0, False)
-        lab = seg_min_scan(lab, 0, True)
-        lab = neighbor_min(lab)
-        do_jump = (jump_every > 0) & (jnp.mod(i + 1, jump_every) == 0)
-        return jax.lax.cond(do_jump, jump, lambda x: x, lab)
+    def body(_, lab):
+        lab = seg_scan(lab, 1)
+        lab = seg_scan(lab, 0)
+        return neighbor_min(lab)
 
     return jax.lax.fori_loop(0, iters, body, labels)
 
 
-def component_areas(labels: jnp.ndarray) -> jnp.ndarray:
-    """Scatter-add pixel counts into a dense (H*W+1,) area array."""
-    h, w = labels.shape
-    n = h * w
-    flat = labels.reshape(-1)
-    return jnp.zeros(n + 1, jnp.float32).at[flat].add(1.0)[:n]
+@functools.partial(jax.jit, static_argnames=("iters", "connectivity"))
+def _connected_components_xla(mask: jnp.ndarray, iters: int = 5,
+                              connectivity: int = 8) -> jnp.ndarray:
+    """`connected_components` with `lax.associative_scan` segmented scans
+    (the plain reference for the Triton kernel)."""
+    sentinel = jnp.int32(mask.shape[0] * mask.shape[1])
+    brk = ~mask
+
+    def combine(a, b):
+        av, ab_ = a
+        bv, bb = b
+        return (jnp.where(bb, bv, jnp.minimum(av, bv)), ab_ | bb)
+
+    def one_way(lab, axis, reverse):
+        v, _ = jax.lax.associative_scan(combine, (lab, brk), axis=axis,
+                                        reverse=reverse)
+        return jnp.where(mask, v, sentinel)
+
+    def seg_scan(lab, axis):
+        return one_way(one_way(lab, axis, False), axis, True)
+
+    return _label_rounds(mask, iters, connectivity, seg_scan)
+
+
+# columns per kernel program (lanes), rows loaded per loop step, warps per
+# program: the fastest of a sweep on the H100 (PERF.md, PR 1)
+_BLOCK_COLS = 32
+_ROWS_PER_STEP = 16
+_NUM_WARPS = 1
+
+
+def _seg_min_scan_kernel(mask_ref, lab_ref, out_ref, *, sentinel: int,
+                         reverse: bool):
+    """One program = one block of columns; walks the rows in order
+    (`reverse`: bottom-up) carrying the running segmented minimum. Each
+    loop step loads _ROWS_PER_STEP rows at once, so their loads are in
+    flight together before the sequential min chain consumes them."""
+    h, w = lab_ref.shape
+    c0 = pl.program_id(0) * _BLOCK_COLS
+    cols = pl.ds(c0, _BLOCK_COLS)
+    in_w = c0 + jnp.arange(_BLOCK_COLS) < w
+
+    def step(g, run):
+        loaded = []
+        for k in range(_ROWS_PER_STEP):
+            i = g * _ROWS_PER_STEP + k
+            r = h - 1 - i if reverse else i
+            ok = in_w & (i < h)
+            loaded.append((
+                r, ok,
+                plgpu.load(mask_ref.at[r, cols], mask=ok, other=0) != 0,
+                plgpu.load(lab_ref.at[r, cols], mask=ok, other=sentinel)))
+        for r, ok, m, lab in loaded:
+            run = jnp.where(m, jnp.minimum(run, lab), lab)
+            plgpu.store(out_ref.at[r, cols], jnp.where(m, run, sentinel),
+                        mask=ok)
+        return run
+
+    jax.lax.fori_loop(0, pl.cdiv(h, _ROWS_PER_STEP), step,
+                      jnp.full((_BLOCK_COLS,), sentinel, jnp.int32))
+
+
+def _column_scan(mask_i8, lab, sentinel, interpret):
+    """Forward then backward segmented min-scan down the columns."""
+    h, w = lab.shape
+    for reverse in (False, True):
+        lab = pl.pallas_call(
+            functools.partial(_seg_min_scan_kernel, sentinel=sentinel,
+                              reverse=reverse),
+            out_shape=jax.ShapeDtypeStruct((h, w), jnp.int32),
+            grid=(pl.cdiv(w, _BLOCK_COLS),),
+            compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
+            interpret=interpret,
+            name="ccl_seg_min_scan",
+        )(mask_i8, lab)
+    return lab
+
+
+@functools.partial(jax.jit, static_argnames=("iters", "connectivity",
+                                             "interpret"))
+def _connected_components_triton(mask: jnp.ndarray, iters: int = 5,
+                                 connectivity: int = 8,
+                                 interpret: bool = False) -> jnp.ndarray:
+    """`connected_components` with the Triton segmented-scan kernel."""
+    sentinel = mask.shape[0] * mask.shape[1]
+    mask_i8 = mask.astype(jnp.int8)
+    mask_t = mask_i8.T
+    scan = functools.partial(_column_scan, sentinel=sentinel,
+                             interpret=interpret)
+
+    def seg_scan(lab, axis):
+        if axis == 0:
+            return scan(mask_i8, lab)
+        return scan(mask_t, lab.T).T
+
+    return _label_rounds(mask, iters, connectivity, seg_scan)
 
 
 def _component_runs(flat: jnp.ndarray, sentinel: int):
     """Exact per-component areas WITHOUT a scatter: sort the flat label
     array, count run lengths via a reverse min-scan over run-start
-    positions. TPU scatter-add is ~4x the cost of sort+scan at these
-    sizes (1.7 vs 0.4+0.1 ms at 230k, measured v5e).
+    positions.
 
     `sentinel` is the background label value (>= any real label).
     Returns (run_label (N,), run_area (N,) f32) — nonzero area only at
@@ -139,31 +188,14 @@ def _component_runs(flat: jnp.ndarray, sentinel: int):
     is_start = jnp.concatenate([jnp.ones(1, bool), s[1:] != s[:-1]])
     sp = jnp.where(is_start, pos, n)
     # lax.cummin, NOT lax.associative_scan(jnp.minimum): identical inclusive
-    # reverse min-scan, but associative_scan's generic slice-tree lowering
-    # compiles pathologically on TPU once batched (measured: 860 s at
-    # (16, 230400) vs 1.9 s for the cummin primitive — this single op was
-    # the whole batch-16 pipeline cold-compile blowup).
+    # reverse min-scan as one primitive, where associative_scan's generic
+    # lowering builds a deep tree of slices that is slow to compile once
+    # batched
     nxt_incl = jax.lax.cummin(sp, axis=0, reverse=True)
     nxt = jnp.concatenate([nxt_incl[1:], jnp.full(1, n, jnp.int32)])
     area = jnp.where(is_start & (s < sentinel),
                      (nxt - pos).astype(jnp.float32), 0.0)
     return s, area
-
-
-def component_bboxes(labels: jnp.ndarray):
-    """Per-label bounding boxes via scatter-min/max.
-
-    Returns (xmin, xmax, ymin, ymax) dense arrays of size H*W."""
-    h, w = labels.shape
-    n = h * w
-    flat = labels.reshape(-1)
-    xs = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1).reshape(-1)
-    ys = jax.lax.broadcasted_iota(jnp.float32, (h, w), 0).reshape(-1)
-    xmin = jnp.full(n + 1, jnp.inf, jnp.float32).at[flat].min(xs)[:n]
-    xmax = jnp.full(n + 1, -jnp.inf, jnp.float32).at[flat].max(xs)[:n]
-    ymin = jnp.full(n + 1, jnp.inf, jnp.float32).at[flat].min(ys)[:n]
-    ymax = jnp.full(n + 1, -jnp.inf, jnp.float32).at[flat].max(ys)[:n]
-    return xmin, xmax, ymin, ymax
 
 
 def top_k_components(labels: jnp.ndarray, k: int,
@@ -178,8 +210,7 @@ def top_k_components(labels: jnp.ndarray, k: int,
     blobs fall outside) and bbox aspect in [0.2, 5] — so background blobs
     don't crowd small tag rings out of the k slots. Bboxes come from
     masked reductions over the candidate set (one (2k,N) compare) instead
-    of full-image scatters — scatters cost ~5-10 ms/frame on v5e while
-    masked reductions are bandwidth-bound elementwise passes.
+    of full-image scatters.
 
     Returns (root_labels (k,) int32, areas (k,) f32, valid (k,) bool);
     with return_bbox (ring path only), additionally a (k,4) f32
@@ -196,11 +227,11 @@ def top_k_components(labels: jnp.ndarray, k: int,
         return run_label[top_pos].astype(jnp.int32), top_areas, top_areas > 0
 
     # ring path (the detector): everything runs on a stride-2 subsample
-    # of the label image — the sort and the (2k, N) membership compare
-    # were the whole stage cost (~0.9 ms/frame combined on v5e), and both
-    # quarter. Areas become (count on the stride-2 grid) * 4: an unbiased
-    # estimate whose noise is far inside the min/max-area and fill-ratio
-    # gate margins for any decodable component (>= 8 px across). The <=1
+    # of the label image, which quarters the sort and the (2k, N)
+    # membership compare. Areas become (count on the stride-2 grid) * 4:
+    # an unbiased estimate whose noise is far inside the min/max-area and
+    # fill-ratio gate margins for any decodable component (>= 8 px
+    # across). The <=1
     # px bbox-extent underestimate is folded into bw/bh (+2 instead of
     # +1), and ymin stays exact via the root fold (labels are min
     # row-major pixel indices, so the root's row IS the top row).

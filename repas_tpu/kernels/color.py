@@ -4,7 +4,7 @@ The Femto Bolt streams NV12 / YUYV / MJPG color which the reference
 decodes per-frame on CPU (frame_to_bgr_image, better_three_capture.py:
 87-115; april_tag_detector_ToF.py:80-113). Here the YUV family converts
 on device (one fused elementwise pass); MJPG is a host-side JPEG decode
-(PIL) since entropy decoding is not TPU work.
+(PIL) since entropy decoding is serial host work.
 
 BT.601 limited-range coefficients match OpenCV's COLOR_YUV2RGB_NV12 /
 COLOR_YUV2RGB_YUYV to rounding.

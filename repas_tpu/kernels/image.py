@@ -1,5 +1,5 @@
 """Core 2-D image kernels (pure XLA; stencil ops lower to fused
-reduce-window/conv on TPU).
+reduce-window/conv).
 
 Replaces the cv2 image-processing call sites scattered through the
 reference: cvtColor grayscale, GaussianBlur, Sobel gradients, morphology
@@ -17,14 +17,10 @@ import jax.numpy as jnp
 def pack_rgb_u32(img: jnp.ndarray) -> jnp.ndarray:
     """(H,W,3) uint8 -> (H,W) uint32 with r | g<<8 | b<<16.
 
-    The one-pad-then-bitcast formulation is the only (H,W,3)-u8 access
-    pattern measured near bandwidth on v5e: channel-minor slicing
-    (img[...,c]) makes XLA issue stride-3 sub-lane loads (~0.34
-    ms/frame at 720p, ~23x off bandwidth), and 12-byte->3-lane bitcast
-    repacking pays the same stride-3 cost on the u32 lanes. Padding the
-    channel dim to 4 bytes is a layout-preserving widening XLA lowers to
-    one full-lane pass, and the bitcast is free (0.16 ms/frame total,
-    tools/micro_perf.py)."""
+    Padding the channel dim to 4 bytes and bitcasting reads the
+    channel-minor u8 image in one contiguous pass (no stride-3 channel
+    slices), and every later consumer extracts channels with shifts and
+    masks on one 32-bit word per pixel."""
     x4 = jnp.pad(img, ((0, 0), (0, 0), (0, 1)))
     return jax.lax.bitcast_convert_type(x4, jnp.uint32)
 
@@ -40,9 +36,8 @@ def gray_from_u32(packed: jnp.ndarray) -> jnp.ndarray:
 def rgb_to_gray(img: jnp.ndarray) -> jnp.ndarray:
     """BT.601 luma -> float32 [0,255] (cv2.cvtColor RGB2GRAY weights).
 
-    uint8 inputs go through pack_rgb_u32 (full-lane pad+bitcast; see
-    there for why every channel-minor alternative is ~2x slower) and
-    extract channels with vector shifts/masks. Bit-identical to the
+    uint8 inputs go through pack_rgb_u32 (pad+bitcast) and extract
+    channels with vector shifts/masks. Bit-identical to the
     naive path: byte extraction is exact and the f32 weighted sum sees
     the same integer values in the same order. Pipelines that also feed
     the pointcloud kernel should pack_rgb_u32 ONCE and use gray_from_u32
@@ -181,20 +176,17 @@ def bilinear_sample_patch(patch: jnp.ndarray, uv: jnp.ndarray
                           ) -> jnp.ndarray:
     """Gather-free bilinear sampling for SMALL images (ROI patches).
 
-    XLA TPU gathers are serialized scalar loads (~40 ns/sample measured
-    on v5e, operand-size independent), which made subpixel edge
-    refinement the second most expensive detector stage. This
-    reformulates bilinear interpolation as two dense contractions with
+    Reformulates bilinear interpolation as two dense contractions with
     hat-function weight matrices: W_row[p,h] = max(0, 1-|h - y_p|) holds
     exactly the two bilinear row weights per sample, so
-    val[p] = sum_h sum_w W_row[p,h] * patch[h,w] * W_col[p,w] — an MXU
-    matmul plus an elementwise reduce, no gathers. ~10x faster than the
-    gather path at detector sample counts; only worthwhile when
-    patch H*W is small (cost is P*H*W flops).
+    val[p] = sum_h sum_w W_row[p,h] * patch[h,w] * W_col[p,w] — a
+    matrix product plus an elementwise reduce, no gathers. Only
+    worthwhile when patch H*W is small (cost is P*H*W flops).
 
     Coordinate clamping matches bilinear_sample. The contraction runs in
-    bfloat16 (f32 accumulate): the MXU is ~4x faster in bf16, uint8 pixel
-    values are exactly representable, and the hat weights' bf16 rounding
+    bfloat16 with f32 accumulation (the tensor cores' native form):
+    uint8 pixel values are exactly representable, and the hat weights'
+    bf16 rounding
     (~0.4%) perturbs samples by ~1 gray level — an order of magnitude
     below the image noise the downstream gradient-peak / decode-threshold
     consumers already tolerate (corner accuracy measured unchanged at the
@@ -215,9 +207,9 @@ def bilinear_sample_patch(patch: jnp.ndarray, uv: jnp.ndarray
 
 def extract_patches(img: jnp.ndarray, starts_xy: jnp.ndarray,
                     size: tuple) -> jnp.ndarray:
-    """(C,2) int32 top-left corners -> (C,ph,pw) patches (dynamic-slice
-    DMAs, ~0.2 ms for 32x256^2 at 720p on v5e — contiguous copies, not
-    gathers). Starts must be pre-clamped to keep slices in bounds."""
+    """(C,2) int32 top-left corners -> (C,ph,pw) patches (contiguous
+    dynamic-slice copies, not gathers). Starts must be pre-clamped to
+    keep slices in bounds."""
     ph, pw = size
     return jax.vmap(lambda s: jax.lax.dynamic_slice(
         img, (s[1], s[0]), (ph, pw)))(starts_xy)
@@ -227,9 +219,7 @@ def decimate(img: jnp.ndarray, factor: int = 2) -> jnp.ndarray:
     """Average-pool decimation (quad_decimate equivalent).
 
     reduce_window, not reshape(h2,f,w2,f).mean((1,3)): the reshape form
-    leaves a minor dim of size `factor` whose reduction runs at f/128
-    lane utilization (gray+decimate measured 0.22 vs 0.11 ms/frame at
-    720p on v5e, tools/micro_perf.py)."""
+    leaves a minor dim of size `factor` to reduce."""
     if factor <= 1:
         return img
     h, w = img.shape
@@ -344,9 +334,7 @@ def clahe(gray: jnp.ndarray, clip_limit: float = 2.0, tiles: int = 8
     Tile histograms (256 bins) are clipped, redistributed, turned into
     CDFs, and bilinearly interpolated between tile centers.
 
-    TPU formulation (no scatters, no full-image gathers — both are
-    serialized scalar memory ops on TPU and made CLAHE the hidden cost
-    of the robust detection ladder):
+    Formulation without scatters or full-image gathers:
 
       * tile histograms: one-hot compare + reduce per tile (fused by
         XLA into a bandwidth-bound pass),
@@ -354,8 +342,7 @@ def clahe(gray: jnp.ndarray, clip_limit: float = 2.0, tiles: int = 8
         Within a quarter-tile block every pixel interpolates the SAME
         four tile LUTs (the ty0/tx0 indices change only at half-tile
         boundaries), so the 256-entry lookup becomes a (N,256) one-hot
-        @ (256,4) matmul per block — MXU work instead of 4 full-image
-        gathers. The per-pixel bilinear weights stay elementwise.
+        @ (256,4) matmul per block instead of 4 full-image gathers. The per-pixel bilinear weights stay elementwise.
     """
     g = jnp.clip(gray.astype(jnp.float32), 0.0, 255.0)
     h, w = g.shape
@@ -383,7 +370,7 @@ def clahe(gray: jnp.ndarray, clip_limit: float = 2.0, tiles: int = 8
         # quarter-tile block decomposition doesn't apply) or H/W not a
         # multiple of the tile grid (the remainder band must still be
         # LUT-transformed, not edge-replicated): use the gather
-        # formulation (correct everywhere, slower on TPU)
+        # formulation (correct everywhere)
         yy = jnp.arange(h, dtype=jnp.float32)
         xx = jnp.arange(w, dtype=jnp.float32)
         ty = jnp.clip((yy - th / 2) / th, 0.0, tiles - 1.001)

@@ -1,165 +1,19 @@
 """Per-component ROI patch extraction from a row-concatenated pyramid.
 
 The detector's refine/decode tier slices one patch per candidate
-component out of a (Hp,W) image pyramid at data-dependent offsets. The
-XLA formulation (vmap of dynamic_slice -> gather) was the detector's
-hottest single op at 720p (0.39 ms/frame f32, 0.20 ms bf16): XLA lowers
-the batched dynamic-slice to a serialized row-gather that runs ~20x off
-DMA bandwidth.
-
-TPU path: a pure-DMA Pallas kernel. Mosaic requires HBM slice offsets
-to be provably tile-aligned ((16,128) for bf16), so instead of cutting
-the exact (ph,pw) window, extraction returns the enclosing ALIGNED
-(ph+16, pw+192) window plus its origin — and the consumers (hat-matmul
-bilinear samplers, which take arbitrary float coordinates) absorb the
-sub-tile residual in their sample positions. No vector ops at all in
-the kernel: one double-buffered async copy per patch, offsets written
-as block_index * tile so divisibility is syntactic.
-
-Sampling results are numerically equivalent to exact-window extraction
-whenever the sample positions stay inside the exact window (the
-detector's level-fit logic guarantees this for every refined/decoded
-quad): the same source pixels back the same hat weights, with only
-float-rounding differences from the shifted coordinate magnitudes
-(|row - v| evaluated at v+ry instead of v; observed corner/margin
-deltas are at the 1e-3 px / 0.1 gray level). The non-TPU path slices
-the same aligned windows with dynamic_slice, so both backends see
-identical arrays.
-
-Callers must build the pyramid with each level block height a multiple
-of ROW_TILE (detector does) — then row alignment can never pull a
-window start above its level's first row, so clamped (out-of-window)
-samples still read that level's own edge-padded content.
+component out of a (Hp,W) image pyramid at data-dependent offsets: a
+vmap of `lax.dynamic_slice`, which XLA emits as one slicing fusion whose
+threads read contiguous rows.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-ROW_TILE = 16      # bf16 HBM tile is (16, 128)
-LANE_TILE = 128
-COVER_H = 16       # aligned window margins: AH = ph + COVER_H
-COVER_W = 192      # AW = pw + COVER_W (residual <= 192 when
-                   # (W - AW) % 128 == 0; see aligned_ok)
-
-
-def aligned_ok(pyr_shape, ph: int, pw: int) -> bool:
-    """True when the aligned-window scheme applies to this geometry."""
-    hp, w = pyr_shape
-    ah, aw = ph + COVER_H, pw + COVER_W
-    return (w >= aw and (w - aw) % LANE_TILE == 0 and hp >= ah
-            and ph % ROW_TILE == 0)
-
-
-def _aligned_starts(y0, x0, hp, w, ph, pw):
-    ah, aw = ph + COVER_H, pw + COVER_W
-    ay = jnp.minimum((y0 // ROW_TILE) * ROW_TILE, hp - ah)
-    ax = jnp.minimum((x0 // LANE_TILE) * LANE_TILE, w - aw)
-    return ay, ax
-
-
-def _extract_dma_batched(pyr_b: jnp.ndarray, starts_blk: jnp.ndarray,
-                         ah: int, aw: int) -> jnp.ndarray:
-    """pyr_b (B,Hp,W) bf16, starts_blk (B,C,2) int32 [y_blk, x_blk] in
-    tile units -> (B,C,ah,aw) bf16 via double-buffered HBM->HBM DMA."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B = pyr_b.shape[0]
-    C = starts_blk.shape[1]
-    total = B * C
-    nbuf = min(8, total)   # DMAs kept in flight — a one-per-grid-step
-                           # double buffer left the engine idle between
-                           # steps (1.57 vs 0.11 ms/frame measured)
-
-    def kernel(sref, pyr_ref, out_ref, sems):
-        def dma(j, slot):
-            b = j // C
-            c = j % C
-            yb = sref[b, c, 0]
-            xb = sref[b, c, 1]
-            return pltpu.make_async_copy(
-                pyr_ref.at[b, pl.ds(yb * ROW_TILE, ah),
-                           pl.ds(xb * LANE_TILE, aw)],
-                out_ref.at[b, c], sems.at[slot])
-
-        for j in range(nbuf):            # static prologue
-            dma(j, j).start()
-
-        def body(j, _):
-            dma(j, j % nbuf).wait()
-
-            @pl.when(j + nbuf < total)
-            def _():
-                dma(j + nbuf, j % nbuf).start()
-            return 0
-
-        jax.lax.fori_loop(0, total, body, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(1,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((nbuf,))],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, C, ah, aw), pyr_b.dtype),
-    )(starts_blk, pyr_b)
-
-
-# (ah, aw) threaded via module constant: custom_vmap wrappers take array
-# args only; the detector always uses its (192+16, 192+192) shape
-_ALIGNED_SHAPE = (208, 384)
-
-
-@jax.custom_batching.custom_vmap
-def _extract_tpu(pyr, ay, ax):
-    ah, aw = _ALIGNED_SHAPE
-    blk = jnp.stack([ay // ROW_TILE, ax // LANE_TILE], -1)[None]
-    return _extract_dma_batched(pyr[None], blk, ah, aw)[0]
-
-
-@_extract_tpu.def_vmap
-def _extract_tpu_vmap(axis_size, in_batched, pyr, ay, ax):
-    ah, aw = _ALIGNED_SHAPE
-    pyr_b, ay_b, ax_b = in_batched
-    if not pyr_b:
-        pyr = jnp.broadcast_to(pyr, (axis_size,) + pyr.shape)
-    if not ay_b:
-        ay = jnp.broadcast_to(ay, (axis_size,) + ay.shape)
-    if not ax_b:
-        ax = jnp.broadcast_to(ax, (axis_size,) + ax.shape)
-    blk = jnp.stack([ay // ROW_TILE, ax // LANE_TILE], -1)
-    return _extract_dma_batched(pyr, blk, ah, aw), True
-
 
 def extract_patches_pyramid(pyr: jnp.ndarray, y0: jnp.ndarray,
                             x0: jnp.ndarray, ph: int, pw: int):
-    """pyr (Hp,W), y0/x0 (C,) int32 top-left corners of the EXACT (ph,pw)
-    windows (pre-clipped in bounds) -> (patches, ay, ax):
-
-      patches (C,AH,AW) — aligned windows containing each exact window
-      ay, ax  (C,) int32 — the aligned origin (pyr coords); consumers
-              sample at (orig_coord - origin), exactly as with exact
-              windows, just with a different origin.
-
-    When the geometry doesn't admit the aligned scheme (tiny test
-    images), AH,AW degrade to (ph,pw) with ay,ax = y0,x0 — callers must
-    treat shapes/origins generically."""
-    hp, w = pyr.shape
-    if not aligned_ok(pyr.shape, ph, pw):
-        patches = jax.vmap(lambda y, x: jax.lax.dynamic_slice(
-            pyr, (y, x), (ph, pw)))(y0, x0)
-        return patches, y0, x0
-    ah, aw = ph + COVER_H, pw + COVER_W
-    ay, ax = _aligned_starts(y0, x0, hp, w, ph, pw)
-    if (jax.default_backend() == "tpu" and pyr.dtype == jnp.bfloat16
-            and (ah, aw) == _ALIGNED_SHAPE):
-        patches = _extract_tpu(pyr, ay, ax)
-    else:
-        patches = jax.vmap(lambda y, x: jax.lax.dynamic_slice(
-            pyr, (y, x), (ah, aw)))(ay, ax)
-    return patches, ay, ax
+    """pyr (Hp,W), y0/x0 (C,) int32 top-left corners of the (ph,pw)
+    windows (pre-clipped in bounds) -> (C,ph,pw) patches."""
+    return jax.vmap(lambda y, x: jax.lax.dynamic_slice(
+        pyr, (y, x), (ph, pw)))(y0, x0)

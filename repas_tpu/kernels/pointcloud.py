@@ -5,10 +5,11 @@ On-device replacements for the SDK C++ point-cloud paths
 rs.pointcloud map_to/calculate, capture_aligned_all.py:78,208-216) and the
 reference's own NumPy meshgrid deprojection (create_masked_ply.py:56-107).
 
-Two implementations of the fused u16-depth -> meters -> XYZ -> +RGB path:
-  * `rgbd_to_pointcloud` — pure-XLA (fuses fine on TPU, works everywhere)
-  * `fused_pointcloud_kernel` — Pallas TPU kernel, row-tile grid, for the
-    hot streaming loop (one pass over HBM, no intermediates)
+Two entry points to the depth -> XYZ + RGB path:
+  * `rgbd_to_pointcloud` — (H,W,3) RGB + metric depth -> flat (N,3)
+    points/colors and a validity mask (the apps' export path)
+  * `fused_pointcloud` — u16 depth + packed RGB -> planar (6, H*W), the
+    pipeline's per-frame path
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from repas_tpu.kernels.image import pack_rgb_u32
 
 
 def depth_to_meters(depth_u16: jnp.ndarray, scale: float = 0.001) -> jnp.ndarray:
@@ -66,96 +69,41 @@ def fused_pointcloud(depth_u16: jnp.ndarray, rgb: jnp.ndarray, K,
                      scale: float = 0.001):
     """Fused u16 depth + RGB -> PLANAR (6, H*W) [x,y,z,r,g,b] rows.
 
-    Pallas on TPU; falls back to the XLA path on non-TPU backends or odd
-    shapes. Planar (structure-of-arrays) is the TPU-native layout: each
-    channel is a full-lane (H*W,) row, so the producing kernel and every
-    downstream elementwise/reduce op run at memory bandwidth. The
-    xyzrgb-rows (H*W, 6) layout tiles its minor dim at 6/128 lane
-    utilization — materializing it cost more than the whole deprojection
-    (0.37 vs 0.24 ms/frame measured, tools/micro_perf.py). Use
-    `xyzrgb_rows` only at export boundaries (PLY writers, Open3D
-    interop).
+    One elementwise map, which XLA fuses into a single pass over the
+    depth and color. Planar (structure-of-arrays) output keeps every
+    channel a contiguous (H*W,) row for the downstream elementwise and
+    reduce ops; use `xyzrgb_rows` only at export boundaries (PLY
+    writers, Open3D interop).
 
     `rgb` may be (H,W,3) uint8 or an already-packed (H,W) uint32
     (r|g<<8|b<<16, kernels.image.pack_rgb_u32) — pipelines that also
-    grayscale the frame pack once and share."""
+    grayscale the frame pack once and share. Colors are zero where the
+    depth is zero."""
+    if rgb.ndim == 3:
+        rgb = pack_rgb_u32(rgb.astype(jnp.uint8))
+    packed = rgb.astype(jnp.uint32)
+    K = jnp.asarray(K, jnp.float32)
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     h, w = depth_u16.shape
-    if jax.default_backend() == "tpu" and w % 128 == 0 and h % 16 == 0:
-        out = _fused_pointcloud_pallas(depth_u16, rgb,
-                                       jnp.asarray(K, jnp.float32),
-                                       jnp.float32(scale))
-        return out.reshape(6, -1)
-    if rgb.ndim == 2:    # packed u32 -> (H,W,3) u8 for the XLA fallback
-        rgb = jnp.stack([(rgb & 255), (rgb >> 8) & 255,
-                         (rgb >> 16) & 255], axis=-1).astype(jnp.uint8)
-    pts, cols, valid = rgbd_to_pointcloud(rgb, depth_to_meters(depth_u16, scale), K)
-    return jnp.concatenate([pts.T, cols.T], axis=0)
+    z = depth_u16.astype(jnp.float32) * jnp.float32(scale)
+    u = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1)
+    v = jax.lax.broadcasted_iota(jnp.float32, (h, w), 0)
+    inv255 = jnp.where(z > 0, jnp.float32(1.0 / 255.0), 0.0)
+    out = jnp.stack([
+        (u - cx) * z * (1.0 / fx),
+        (v - cy) * z * (1.0 / fy),
+        z,
+        (packed & 0xFF).astype(jnp.float32) * inv255,
+        ((packed >> 8) & 0xFF).astype(jnp.float32) * inv255,
+        ((packed >> 16) & 0xFF).astype(jnp.float32) * inv255,
+    ])
+    return out.reshape(6, h * w)
 
 
 def xyzrgb_rows(pc_planar: jnp.ndarray) -> jnp.ndarray:
     """(6, N) planar cloud -> (N, 6) xyzrgb rows (export/Open3D interop
-    boundary only — the transpose materializes the 6-minor layout that
-    the hot path deliberately avoids)."""
+    boundary only)."""
     return pc_planar.T
-
-
-def _fused_pointcloud_pallas(depth_u16, rgb, K, scale):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = depth_u16.shape
-    tile_h = 16  # u16 min tile is (16, 128)
-
-    # pack RGB into one int32 word per pixel so the kernel reads 32-bit
-    # lanes. pack_rgb_u32's pad+bitcast is the only near-bandwidth
-    # (H,W,3)-u8 access pattern on v5e (see kernels/image.py); the
-    # previous 12-byte->3-lane repack paid stride-3 sub-lane loads and
-    # dominated the pointcloud stage's cost.
-    if rgb.ndim == 2:                  # pre-packed u32
-        rgb32 = rgb.astype(jnp.int32) & 0xFFFFFF
-    elif rgb.dtype == jnp.uint8:
-        from repas_tpu.kernels.image import pack_rgb_u32
-        rgb32 = pack_rgb_u32(rgb).astype(jnp.int32) & 0xFFFFFF
-    else:
-        rgb32 = (rgb[..., 0].astype(jnp.int32)
-                 | (rgb[..., 1].astype(jnp.int32) << 8)
-                 | (rgb[..., 2].astype(jnp.int32) << 16))
-
-    def kernel(k_ref, d_ref, c_ref, out_ref):
-        i = pl.program_id(0)
-        fx, fy, cx, cy, s = (k_ref[0], k_ref[1], k_ref[2], k_ref[3], k_ref[4])
-        # mosaic lacks a u16->f32 cast; bitcast to i16, widen, re-mask
-        d_i32 = pltpu.bitcast(d_ref[:, :], jnp.int16).astype(jnp.int32) & 0xFFFF
-        z = d_i32.astype(jnp.float32) * s
-        u = jax.lax.broadcasted_iota(jnp.int32, (tile_h, w), 1).astype(jnp.float32)
-        v = (jax.lax.broadcasted_iota(jnp.int32, (tile_h, w), 0)
-             + i * tile_h).astype(jnp.float32)
-        packed = c_ref[:, :]
-        # zero colors where depth is invalid, matching rgbd_to_pointcloud
-        inv255 = jnp.where(z > 0, jnp.float32(1.0 / 255.0), 0.0)
-        out_ref[0, :, :] = (u - cx) * z * (1.0 / fx)
-        out_ref[1, :, :] = (v - cy) * z * (1.0 / fy)
-        out_ref[2, :, :] = z
-        out_ref[3, :, :] = (packed & 0xFF).astype(jnp.float32) * inv255
-        out_ref[4, :, :] = ((packed >> 8) & 0xFF).astype(jnp.float32) * inv255
-        out_ref[5, :, :] = ((packed >> 16) & 0xFF).astype(jnp.float32) * inv255
-
-    kvec = jnp.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2], scale])
-    out = pl.pallas_call(
-        kernel,
-        grid=(h // tile_h,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_h, w), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, w), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((6, tile_h, w), lambda i: (0, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((6, h, w), jnp.float32),
-    )(kvec, depth_u16, rgb32)
-    return out
 
 
 def masked_median_depth_window(depth_m: jnp.ndarray, mask: jnp.ndarray,

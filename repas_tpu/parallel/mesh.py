@@ -1,20 +1,21 @@
 """Device-mesh scale-out: frame data-parallelism + fusion collectives.
 
 The reference has no distributed execution at all (SURVEY.md §2.3 — the
-only concurrency is detector worker threads). The TPU-native scaling axis
-for this workload is a 1-D `frames` mesh: captures/streams are
-embarrassingly parallel through detect+PnP+pointcloud, with ICI
-collectives only at the fusion/reduction boundaries:
+only concurrency is detector worker threads). The scaling axis for this
+workload is a 1-D `frames` mesh: captures/streams are embarrassingly
+parallel through detect+PnP+pointcloud, with collectives only at the
+fusion/reduction boundaries. The GPUs of one host reach each other all
+to all over NVLink, so the mesh follows the frames alone:
 
   * `sharded_frame_pipeline` — shard a frame batch over the mesh and run
     any per-frame function with zero cross-chip traffic (pjit handles the
     rest).
   * `fuse_views_allgather`  — all-gather per-view point clouds for
-    multi-view fusion (rides ICI, not DCN).
+    multi-view fusion.
   * `batch_stats_psum`      — global error/metric reductions via psum.
 
-All helpers work on any mesh size including 1 (single chip) and on the
-CPU-backend virtual mesh used in tests.
+All helpers work on any mesh size including 1 (single device) and on
+the CPU-backend virtual mesh used in tests.
 """
 from __future__ import annotations
 

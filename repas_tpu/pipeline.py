@@ -5,7 +5,7 @@ parallel.mesh): RGB + aligned u16 depth ->
   tag36h11 detection -> per-tag best-order IPPE PnP -> depth-corrected
   translation -> weighted quaternion fusion -> colored point cloud.
 
-This is the TPU-native equivalent of the reference's hot loop
+This is the on-device equivalent of the reference's hot loop
 (better_three_capture.py streaming + mpa_final_view_with_export.py pose
 stack): everything after the camera read happens in one XLA program on
 device — no per-frame OpenCV/Open3D host hops.
@@ -49,9 +49,8 @@ def process_frame(rgb: jnp.ndarray, depth_u16: jnp.ndarray, K,
         dist = jnp.asarray(dist, jnp.float32).reshape(-1)[:8]
         dist = jnp.concatenate(
             [dist, jnp.zeros(8 - dist.shape[0], jnp.float32)])
-    # pack RGB to one u32/pixel ONCE; grayscale and the pointcloud kernel
-    # both consume the packed form (channel-minor u8 access is the single
-    # most expensive pattern on TPU — kernels/image.py pack_rgb_u32)
+    # pack RGB to one u32/pixel ONCE; grayscale and the point cloud both
+    # consume the packed form (kernels/image.py pack_rgb_u32)
     if rgb.ndim == 3 and rgb.dtype == jnp.uint8:
         from repas_tpu.kernels.image import gray_from_u32, pack_rgb_u32
         packed = pack_rgb_u32(rgb)

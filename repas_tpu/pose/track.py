@@ -7,7 +7,7 @@ The reference has two temporal-tracking shapes this module mirrors:
   * the realtime per-frame AprilTag pose stream
     (realtime_pose_estimation_april_tag.py:73-76).
 
-TPU-native design (instead of re-detecting every frame from scratch):
+On-device design (instead of re-detecting every frame from scratch):
 
   register : full-frame detection (optionally the robust ladder) + 8-order
              IPPE PnP — the expensive, prior-free path.

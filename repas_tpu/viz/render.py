@@ -3,7 +3,7 @@
 The reference renders point clouds with a CPU software rasterizer —
 project / view transform / grid / frustum culling / painter's-sort point
 splatting (capture_aligned_all.py:127-186, AppState view controls :26-53).
-TPU-native equivalent: one jitted pass
+On-device equivalent: one jitted pass
 
   view transform -> pinhole project -> two-pass z-buffer splat
   (scatter-min depth, then color write where a point owns its pixel)

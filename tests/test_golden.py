@@ -1,8 +1,7 @@
 """Golden tests on the checked-in reference captures (SURVEY.md §4/§7
-parity gates). Heavy at 720p — gated behind REPAS_GOLDEN=1; run them on
-the TPU backend:
+parity gates). Heavy at 720p — gated behind REPAS_GOLDEN=1:
 
-    REPAS_GOLDEN=1 REPAS_TEST_TPU=1 python -m pytest tests/test_golden.py
+    REPAS_GOLDEN=1 python -m pytest tests/test_golden.py
 """
 import os
 

@@ -153,28 +153,144 @@ def test_replay_backend(reference_root):
         select_profile(profs, "infrared", 640, 480)
 
 
-def test_ccl_pallas_parity_interpret(rng):
-    """The Pallas CCL kernel (used on TPU backends) is bit-identical to
-    the XLA scan formulation; interpret mode exercises the kernel's own
-    code path on any backend. Small image — interpret mode is slow."""
+def _numpy_ccl(mask, iters, connectivity):
+    """Round-for-round numpy model of the CCL: per round, every run of
+    mask pixels along each row, then each column, takes its minimum
+    label (what a forward+backward segmented min-scan computes), then a
+    3x3 (or 4-neighbour) min stencil."""
+    h, w = mask.shape
+    n = h * w
+    lab = np.where(mask, np.arange(n).reshape(h, w), n)
+
+    def runs_min(line, m):
+        out = np.full_like(line, n)
+        i = 0
+        while i < len(line):
+            if not m[i]:
+                i += 1
+                continue
+            j = i
+            while j < len(line) and m[j]:
+                j += 1
+            out[i:j] = line[i:j].min()
+            i = j
+        return out
+
+    shifts = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if connectivity == 8:
+        shifts += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    for _ in range(iters):
+        lab = np.stack([runs_min(lab[r], mask[r]) for r in range(h)])
+        lab = np.stack([runs_min(lab[:, c], mask[:, c])
+                        for c in range(w)], axis=1)
+        p = np.pad(lab, 1, constant_values=n)
+        m = lab.copy()
+        for dy, dx in shifts:
+            m = np.minimum(m, p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
+        lab = np.where(mask, m, n)
+    return lab
+
+
+@pytest.mark.parametrize("shape", [(40, 56), (90, 160)])
+def test_ccl_xla_matches_numpy_rounds(rng, shape):
+    """The XLA scan formulation equals the numpy round-for-round model
+    (labels are integers: bit-exact), including rounds that have not
+    converged yet."""
     from repas_tpu.kernels.ccl import _connected_components_xla
-    from repas_tpu.kernels.ccl_pallas import connected_components_pallas
 
-    mask = jnp.asarray(rng.random((64, 128)) > 0.55)
-    ref = np.asarray(_connected_components_xla(mask, iters=5))
-    got = np.asarray(connected_components_pallas(mask, iters=5,
-                                                 interpret=True))
-    np.testing.assert_array_equal(ref, got)
+    mask = rng.random(shape) > 0.45
+    for iters, conn in [(1, 8), (3, 4), (5, 8)]:
+        got = np.asarray(_connected_components_xla(
+            jnp.asarray(mask), iters=iters, connectivity=conn))
+        np.testing.assert_array_equal(got, _numpy_ccl(mask, iters, conn))
 
 
-def test_ccl_pallas_tiled_parity_interpret(rng):
-    """The band-tiled Pallas CCL (used on TPU for images beyond
-    single-block VMEM capacity) matches the XLA path bit-for-bit."""
-    from repas_tpu.kernels.ccl import _connected_components_xla
-    from repas_tpu.kernels.ccl_pallas import connected_components_pallas_tiled
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("shape", [(90, 160), (64, 256), (37, 50)])
+def test_ccl_triton_parity_interpret(rng, shape, connectivity):
+    """The Triton segmented-scan CCL (the CUDA path) is bit-identical to
+    the XLA scan formulation; interpret mode runs the kernel's own code
+    on the CPU. Shapes cover partial column blocks in both scan
+    directions (the row scans run on the transpose)."""
+    from repas_tpu.kernels.ccl import (_connected_components_triton,
+                                       _connected_components_xla)
 
-    mask = jnp.asarray(rng.random((64, 256)) > 0.55)
-    ref = np.asarray(_connected_components_xla(mask, iters=5))
-    got = np.asarray(connected_components_pallas_tiled(mask, iters=5,
-                                                       interpret=True))
-    np.testing.assert_array_equal(ref, got)
+    mask = jnp.asarray(rng.random(shape) > 0.5)
+    ref = np.asarray(_connected_components_xla(
+        mask, iters=5, connectivity=connectivity))
+    got = np.asarray(_connected_components_triton(
+        mask, iters=5, connectivity=connectivity, interpret=True))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_ccl_triton_batched_interpret(rng):
+    """Under vmap (the detector labels a frame batch) the kernel grid
+    gains a batch axis; each frame still matches the XLA path."""
+    from repas_tpu.kernels.ccl import (_connected_components_triton,
+                                       _connected_components_xla)
+
+    masks = jnp.asarray(rng.random((3, 24, 40)) > 0.5)
+    got = jax.vmap(lambda m: _connected_components_triton(
+        m, iters=3, interpret=True))(masks)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            np.asarray(got[i]),
+            np.asarray(_connected_components_xla(masks[i], iters=3)))
+
+
+def test_connected_components_cpu_takes_xla_path(rng):
+    """Off CUDA the platform switch lowers the XLA formulation, inside
+    jit and vmap as the detector calls it."""
+    from repas_tpu.kernels.ccl import (_connected_components_xla,
+                                       connected_components)
+
+    masks = jnp.asarray(rng.random((2, 30, 44)) > 0.5)
+    got = jax.jit(jax.vmap(lambda m: connected_components(m, iters=4)))(
+        masks)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.asarray(got[i]),
+            np.asarray(_connected_components_xla(masks[i], iters=4)))
+
+
+def test_extract_patches_pyramid_exact_window(rng):
+    """Patches are the exact (ph,pw) windows at the given origins,
+    including windows flush with the bottom/right edges."""
+    from repas_tpu.kernels.patch_extract import extract_patches_pyramid
+
+    pyr = rng.random((300, 200)).astype(np.float32)
+    ph, pw = 48, 64
+    y0 = np.array([0, 17, 300 - ph, 123], np.int32)
+    x0 = np.array([0, 99, 200 - pw, 5], np.int32)
+    got = np.asarray(extract_patches_pyramid(
+        jnp.asarray(pyr, jnp.bfloat16), jnp.asarray(y0), jnp.asarray(x0),
+        ph, pw))
+    assert got.shape == (4, ph, pw)
+    ref = np.stack([pyr[y:y + ph, x:x + pw] for y, x in zip(y0, x0)])
+    np.testing.assert_array_equal(
+        got.astype(np.float32),
+        np.asarray(jnp.asarray(ref, jnp.bfloat16), np.float32))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_fused_pointcloud_planar_matches_numpy(rng, packed):
+    """Planar (6, H*W) cloud equals a float64 numpy deprojection for
+    packed u32 and (H,W,3) u8 colors; zero depth gives zero XYZ and
+    zero color."""
+    from repas_tpu.kernels.image import pack_rgb_u32
+
+    h, w = 12, 20
+    depth = rng.integers(0, 4000, (h, w)).astype(np.uint16)
+    depth[::3, ::4] = 0
+    rgb = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    color = pack_rgb_u32(jnp.asarray(rgb)) if packed else jnp.asarray(rgb)
+    got = np.asarray(fused_pointcloud(jnp.asarray(depth), color, K))
+    z = depth.astype(np.float64) * 0.001
+    v, u = np.mgrid[:h, :w].astype(np.float64)
+    col = rgb / 255.0 * (z > 0)[..., None]
+    ref = np.stack([(u - K[0, 2]) * z / K[0, 0],
+                    (v - K[1, 2]) * z / K[1, 1], z,
+                    col[..., 0], col[..., 1], col[..., 2]]).reshape(6, -1)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    zero = (depth == 0).reshape(-1)
+    assert zero.any() and (got[:, zero] == 0).all()

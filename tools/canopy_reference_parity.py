@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the REFERENCE's own canopy algorithm (cv2 GrabCut pipeline) on the
 four checked-in captures and compare against (a) the checked-in
-canopy_y_*.txt truths and (b) the repo's TPU pipeline output.
+canopy_y_*.txt truths and (b) the repo's on-device pipeline output.
 
 Purpose (VERDICT r3 missing #1 / next #2): the repo's golden gate was
 re-grounded in r3 to a tip-physics truth on the claim that the three
